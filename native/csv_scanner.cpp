@@ -1,6 +1,6 @@
 // Native bulk text scanner.
 //
-// TPU-native equivalent of the reference's TextScanOperator
+// Host-side equivalent of the reference's TextScanOperator
 // (relational_operators/TextScanOperator.cpp: file split into 256KB segments, one
 // WorkOrder per segment, parsed in parallel by Worker threads). Here the same
 // parallel-segment design runs as std::threads inside one shared library, writing
@@ -13,7 +13,8 @@
 //                  3=string (byte offsets into a string-bytes arena + arena fill)
 //      Every column writes null flags (empty field or \N).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -pthread -o libqstpu_io.so csv_scanner.cpp
+// Build: quickstep_tpu/storage/native_io.py compiles this file at first use
+// into native/build/ (g++ -O3 -shared -fPIC -pthread).
 
 #include <atomic>
 #include <cstdint>

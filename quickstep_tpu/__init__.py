@@ -1,6 +1,6 @@
-"""quickstep-tpu: a TPU-native vectorized SQL query-execution engine.
+"""quickstep-tpu: a vectorized SQL query-execution engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas design with the capabilities of UWQuickstep/quickstep
+A from-scratch JAX/XLA design with the capabilities of UWQuickstep/quickstep
 (reference layer map in SURVEY.md §1): SQL text -> parser -> resolver -> optimizer ->
 columnar operator DAG -> whole-query XLA compilation over a device mesh.
 """
@@ -10,21 +10,16 @@ import os
 import jax
 
 # The SQL type system needs 64-bit integers (LONG, fixed-point DECIMAL accumulation) and
-# float64 (DOUBLE). TPU emulates both; hot paths use 32-bit dtypes where types allow.
+# float64 (DOUBLE); hot paths use 32-bit dtypes where types allow.
 jax.config.update("jax_enable_x64", True)
 
-# In some environments the platform plugin overrides JAX_PLATFORMS; QSTPU_PLATFORM
-# forces a backend through jax.config (e.g. QSTPU_PLATFORM=cpu for tests/CLI work).
-if os.environ.get("QSTPU_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["QSTPU_PLATFORM"])
-
-# Persistent XLA compilation cache: TPU sort/scan compiles are tens of seconds;
-# caching them makes query compilation a one-time cost across processes.
-_cache_dir = os.environ.get("QSTPU_COMPILE_CACHE",
-                            os.path.expanduser("~/.cache/qstpu_xla"))
-if _cache_dir and _cache_dir != "off":
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# Persistent XLA compilation cache. JAX reads JAX_COMPILATION_CACHE_DIR itself; only
+# when it is unset does the engine pick one fixed directory inside the checkout, so
+# every process of this checkout finds the programs the others compiled.
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
 
 __version__ = "0.1.0"
 

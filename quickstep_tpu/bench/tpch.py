@@ -19,9 +19,11 @@ from quickstep_tpu.bench.tpchgen import generate, TPCH_SCHEMAS
 from quickstep_tpu.types import TypeID
 
 
-def load_tpch(db, scale: float = 0.01, seed: int = 0):
-    """Create + load all 8 tables into a quickstep_tpu Database."""
-    data = generate(scale, seed)
+def load_tpch(db, scale: float = 0.01, seed: int = 0, data=None):
+    """Create + load all 8 tables into a quickstep_tpu Database: `data`
+    (name -> TableData, as `generate` returns) or tables generated anew."""
+    if data is None:
+        data = generate(scale, seed)
     for name, schema in TPCH_SCHEMAS.items():
         cols = ", ".join(
             f"{cname} {_ddl_type(t)} NOT NULL" for cname, t in schema)

@@ -90,26 +90,83 @@ def _dates_from_daynum(day_nums: np.ndarray) -> np.ndarray:
     return tbl[day_nums]
 
 
-def _text_column(rng, n: int, min_words: int, max_words: int,
-                 inject: str = None, inject_prob: float = 0.0) -> np.ndarray:
-    """Random word strings (vectorized numpy string joins — scales to SF1+);
-    optionally inject a two-word pattern 'a...b' so LIKE '%a%b%' predicates
-    select a small fraction."""
-    word_arr = np.array(WORDS)
+def _word_matrix(rng, n: int, min_words: int, max_words: int,
+                 inject: str = None, inject_prob: float = 0.0):
+    """Random word text as (vocab, m): `vocab` is the sorted word list and
+    row i of the uint8 matrix `m` holds the 1-based vocab ranks of string
+    i's words, 0 past its last word. Optionally append a two-word pattern
+    'a of b' so LIKE '%a%b%' predicates select a small fraction."""
+    extra = inject.split() + ["of"] if inject else []
+    vocab = sorted(set(WORDS) | set(extra))
+    rank = {w: i + 1 for i, w in enumerate(vocab)}
+    word_rank = np.asarray([rank[w] for w in WORDS], np.uint8)
     counts = rng.integers(min_words, max_words + 1, n)
     idx = rng.integers(0, len(WORDS), (n, max_words))
-    out = word_arr[idx[:, 0]].astype(object)
-    for j in range(1, max_words):
-        wj = np.where(j < counts, word_arr[idx[:, j]], "")
-        sep = np.where(j < counts, " ", "")
-        out = np.char.add(np.char.add(out.astype(str), sep), wj)
+    m = np.zeros((n, max_words + len(extra)), np.uint8)
+    m[:, :max_words] = np.where(np.arange(max_words) < counts[:, None],
+                                word_rank[idx], 0)
     if inject:
         w1, w2 = inject.split()
-        hit = rng.random(n) < inject_prob
-        if hit.any():
-            suffix = f" {w1} of {w2}"
-            out = np.where(hit, np.char.add(out.astype(str), suffix), out)
-    return np.asarray(out, dtype=object)
+        rows = np.flatnonzero(rng.random(n) < inject_prob)
+        for j, w in enumerate((w1, "of", w2)):
+            m[rows, counts[rows] + j] = rank[w]
+    return vocab, m
+
+
+def _join_words(vocab: List[str], m: np.ndarray,
+                chunk: int = 1 << 20) -> List[str]:
+    """' '.join of each row's words, with no Python loop over rows: each
+    chunk of rows is gathered as bytes from a table of 'word ' segments and
+    split on newlines."""
+    seg = [b""] + [w.encode("ascii") + b" " for w in vocab]
+    seglen = np.asarray([len(x) for x in seg], np.int64)
+    segoff = np.cumsum(seglen) - seglen
+    table = np.frombuffer(b"".join(seg), np.uint8)
+    out: List[str] = []
+    for s in range(0, len(m), chunk):
+        block = m[s:s + chunk]
+        toks = block[block > 0].astype(np.int64)
+        tlen = seglen[toks]
+        tstart = np.cumsum(tlen) - tlen
+        src = (np.repeat(segoff[toks] - tstart, tlen)
+               + np.arange(int(tlen.sum())))
+        buf = table[src]
+        buf[np.cumsum(seglen[block].sum(axis=1)) - 1] = ord("\n")
+        out.extend(buf.tobytes().decode("ascii").split("\n")[:-1])
+    return out
+
+
+def _text_column(rng, n: int, min_words: int, max_words: int,
+                 inject: str = None, inject_prob: float = 0.0) -> np.ndarray:
+    """Random word strings (see _word_matrix) as an object array."""
+    return np.asarray(_join_words(*_word_matrix(
+        rng, n, min_words, max_words, inject, inject_prob)), dtype=object)
+
+
+def _text_col(typ, rng, n: int, min_words: int, max_words: int,
+              inject: str = None, inject_prob: float = 0.0) -> Column:
+    """Random word text as a dictionary column, without sorting strings.
+    Strings compare as their rank rows do: every word character sorts above
+    the space, and a string that ends sorts before one that goes on. So the
+    rows are packed into integer keys, sorted, and only the distinct ones
+    are joined into strings."""
+    vocab, m = _word_matrix(rng, n, min_words, max_words, inject, inject_prob)
+    bits = len(vocab).bit_length()
+    per_key = 63 // bits
+    keys = []
+    for g in range(0, m.shape[1], per_key):
+        k = np.zeros(n, np.uint64)
+        for j in range(g, min(g + per_key, m.shape[1])):
+            k = (k << np.uint64(bits)) | m[:, j].astype(np.uint64)
+        keys.append(k)
+    order = np.lexsort(keys[::-1])
+    new = np.ones(n, bool)
+    if n:
+        new[1:] = np.any([np.diff(k[order]) != 0 for k in keys], axis=0)
+    codes = np.empty(n, np.int32)
+    codes[order] = np.cumsum(new) - 1
+    values = _join_words(vocab, m[order[new]]) if n else []
+    return Column(typ, codes, None, Dictionary(values))
 
 
 def _phone(rng, nation: np.ndarray) -> np.ndarray:
@@ -120,7 +177,7 @@ def _phone(rng, nation: np.ndarray) -> np.ndarray:
     out = np.char.add(np.char.add(a, "-"), b)
     out = np.char.add(np.char.add(out, "-"), c)
     out = np.char.add(np.char.add(out, "-"), d)
-    return out.astype(object)
+    return out
 
 
 # Money columns are DECIMAL(9,2): generated directly as exact integer cents
@@ -136,6 +193,17 @@ def _money_units(rng, lo_cents: int, hi_cents: int, n: int) -> np.ndarray:
 def _col_str(typ, values: List[str]) -> Column:
     d, codes = Dictionary.build(values)
     return Column(typ, codes, None, d)
+
+
+def _col_cat(typ, vocab: List[str], idx: np.ndarray) -> Column:
+    """String column whose row i is vocab[idx[i]]: the dictionary holds the
+    values that occur, and no per-row string is made."""
+    vocab = np.asarray(vocab)
+    used = np.flatnonzero(np.bincount(idx, minlength=len(vocab)))
+    d, used_codes = Dictionary.build(vocab[used])
+    lut = np.zeros(len(vocab), np.int32)
+    lut[used] = used_codes
+    return Column(typ, lut[idx], None, d)
 
 
 def _col(typ, arr) -> Column:
@@ -174,15 +242,16 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     s_nation = rng.integers(0, 25, S)
     out["supplier"] = TableData({
         "s_suppkey": _col(INT, sk),
-        "s_name": _col_str(Char(25), list(np.char.add("Supplier#",
-            np.char.zfill(sk.astype(str), 9)))),
-        "s_address": _col_str(VarChar(40), _text_column(rng, S, 2, 4)),
+        "s_name": _col_str(Char(25), np.char.add("Supplier#",
+            np.char.zfill(sk.astype(str), 9))),
+        "s_address": _text_col(VarChar(40), rng, S, 2, 4),
         "s_nationkey": _col(INT, s_nation),
         "s_phone": _col_str(Char(15), _phone(rng, s_nation)),
         "s_acctbal": _col(MONEY, _money_units(rng, -99999, 999999, S)),
         # Q16 probes '%Customer%Complaints%'
-        "s_comment": _col_str(VarChar(101), _text_column(
-            rng, S, 5, 12, inject="Customer Complaints", inject_prob=0.0005)),
+        "s_comment": _text_col(VarChar(101), rng, S, 5, 12,
+                               inject="Customer Complaints",
+                               inject_prob=0.0005),
     })
 
     # ---- part ----
@@ -192,30 +261,31 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     pname = name_words[pidx[:, 0]]
     for j in range(1, 5):
         pname = np.char.add(np.char.add(pname, " "), name_words[pidx[:, j]])
-    pname = list(pname)
     p_mfgr_i = rng.integers(1, 6, P)
     p_brand_i = p_mfgr_i * 10 + rng.integers(1, 6, P)
-    t1 = np.array(TYPE_S1)[rng.integers(0, 6, P)]
-    t2 = np.array(TYPE_S2)[rng.integers(0, 5, P)]
-    t3 = np.array(TYPE_S3)[rng.integers(0, 5, P)]
-    ptype = list(np.char.add(np.char.add(np.char.add(np.char.add(t1, " "), t2),
-                                         " "), t3))
-    pcontainer = list(np.char.add(np.char.add(
-        np.array(CONTAINER_S1)[rng.integers(0, 5, P)], " "),
-        np.array(CONTAINER_S2)[rng.integers(0, 8, P)]))
+    t1 = rng.integers(0, 6, P)
+    t2 = rng.integers(0, 5, P)
+    t3 = rng.integers(0, 5, P)
+    ptypes = [f"{a} {b} {c}" for a in TYPE_S1 for b in TYPE_S2
+              for c in TYPE_S3]
+    c1 = rng.integers(0, 5, P)
+    c2 = rng.integers(0, 8, P)
+    containers = [f"{a} {b}" for a in CONTAINER_S1 for b in CONTAINER_S2]
     # spec retail price formula (keeps price/partkey correlation) — the spec
     # formula is already integer cents
     p_retail_cents = 90000 + ((pk // 10) % 20001) + 100 * (pk % 1000)
     out["part"] = TableData({
         "p_partkey": _col(INT, pk),
         "p_name": _col_str(VarChar(55), pname),
-        "p_mfgr": _col_str(Char(25), [f"Manufacturer#{i}" for i in p_mfgr_i]),
-        "p_brand": _col_str(Char(10), [f"Brand#{i}" for i in p_brand_i]),
-        "p_type": _col_str(VarChar(25), ptype),
+        "p_mfgr": _col_cat(Char(25), [f"Manufacturer#{i}" for i in range(6)],
+                           p_mfgr_i),
+        "p_brand": _col_cat(Char(10), [f"Brand#{i}" for i in range(56)],
+                            p_brand_i),
+        "p_type": _col_cat(VarChar(25), ptypes, (t1 * 5 + t2) * 5 + t3),
         "p_size": _col(INT, rng.integers(1, 51, P)),
-        "p_container": _col_str(Char(10), pcontainer),
+        "p_container": _col_cat(Char(10), containers, c1 * 8 + c2),
         "p_retailprice": _col(MONEY, p_retail_cents),
-        "p_comment": _col_str(VarChar(23), _text_column(rng, P, 2, 5)),
+        "p_comment": _text_col(VarChar(23), rng, P, 2, 5),
     })
 
     # ---- partsupp (spec supplier-assignment formula: 4 suppliers per part) ----
@@ -228,7 +298,7 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
         "ps_suppkey": _col(INT, ps_supp.astype(np.int64)),
         "ps_availqty": _col(INT, rng.integers(1, 10_000, PS)),
         "ps_supplycost": _col(MONEY, _money_units(rng, 100, 100000, PS)),
-        "ps_comment": _col_str(VarChar(199), _text_column(rng, PS, 4, 10)),
+        "ps_comment": _text_col(VarChar(199), rng, PS, 4, 10),
     })
 
     # ---- customer ----
@@ -236,16 +306,15 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     c_nation = rng.integers(0, 25, C)
     out["customer"] = TableData({
         "c_custkey": _col(INT, ck),
-        "c_name": _col_str(VarChar(25), list(np.char.add("Customer#",
-            np.char.zfill(ck.astype(str), 9)))),
-        "c_address": _col_str(VarChar(40), _text_column(rng, C, 2, 4)),
+        "c_name": _col_str(VarChar(25), np.char.add("Customer#",
+            np.char.zfill(ck.astype(str), 9))),
+        "c_address": _text_col(VarChar(40), rng, C, 2, 4),
         "c_nationkey": _col(INT, c_nation),
         "c_phone": _col_str(Char(15), _phone(rng, c_nation)),
         "c_acctbal": _col(MONEY, _money_units(rng, -99999, 999999, C)),
-        "c_mktsegment": _col_str(Char(10), list(
-            np.array(SEGMENTS)[rng.integers(0, 5, C)])),
-        "c_comment": _col_str(VarChar(117), _text_column(
-            rng, C, 5, 12, inject="special requests", inject_prob=0.01)),
+        "c_mktsegment": _col_cat(Char(10), SEGMENTS, rng.integers(0, 5, C)),
+        "c_comment": _text_col(VarChar(117), rng, C, 5, 12,
+                               inject="special requests", inject_prob=0.01),
     })
 
     # ---- orders (sparse keys x4; only customers with custkey%3 != 0) ----
@@ -255,19 +324,20 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     # order dates: 1992-01-01 .. 1998-08-02 (2405 days)
     o_daynum = rng.integers(0, 2406, O)
     o_date = _dates_from_daynum(o_daynum)
+    n_clerks = max(int(1000 * scale), 10)
     out["orders"] = TableData({
         "o_orderkey": _col(INT, ok),
         "o_custkey": _col(INT, o_cust),
         "o_orderstatus": None,      # filled after lineitem
         "o_totalprice": None,       # filled after lineitem
         "o_orderdate": _col(DATE, o_date),
-        "o_orderpriority": _col_str(Char(15), list(
-            np.array(PRIORITIES)[rng.integers(0, 5, O)])),
-        "o_clerk": _col_str(Char(15), list(np.char.add("Clerk#",
-            np.char.zfill(rng.integers(
-                1, max(int(1000 * scale), 10) + 1, O).astype(str), 9)))),
+        "o_orderpriority": _col_cat(Char(15), PRIORITIES,
+                                    rng.integers(0, 5, O)),
+        "o_clerk": _col_cat(Char(15), [f"Clerk#{i:09d}" for i in
+                                       range(n_clerks + 1)],
+                            rng.integers(1, n_clerks + 1, O)),
         "o_shippriority": _col(INT, np.zeros(O, np.int64)),
-        "o_comment": _col_str(VarChar(79), _text_column(rng, O, 5, 12)),
+        "o_comment": _text_col(VarChar(79), rng, O, 5, 12),
     })
 
     # ---- lineitem ----
@@ -294,8 +364,7 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     rf = np.where(returnable,
                   np.where(rng.random(L) < 0.5, 0, 1),  # R or A
                   2)                                     # N
-    rf_strs = np.array(["A", "R", "N"])
-    ls = np.where(ship_daynum > cutoff, "O", "F")
+    open_line = ship_daynum > cutoff                      # 'O', else 'F'
     out["lineitem"] = TableData({
         "l_orderkey": _col(INT, l_order),
         "l_partkey": _col(INT, l_part),
@@ -305,16 +374,15 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
         "l_extendedprice": _col(MONEY, l_extp_c),
         "l_discount": _col(MONEY, l_disc_u),
         "l_tax": _col(MONEY, l_tax_u),
-        "l_returnflag": _col_str(Char(1), list(rf_strs[rf])),
-        "l_linestatus": _col_str(Char(1), list(ls)),
+        "l_returnflag": _col_cat(Char(1), ["A", "R", "N"], rf),
+        "l_linestatus": _col_cat(Char(1), ["F", "O"],
+                                 open_line.astype(np.intp)),
         "l_shipdate": _col(DATE, _dates_from_daynum(ship_daynum)),
         "l_commitdate": _col(DATE, _dates_from_daynum(commit_daynum)),
         "l_receiptdate": _col(DATE, _dates_from_daynum(receipt_daynum)),
-        "l_shipinstruct": _col_str(Char(25), list(
-            np.array(INSTRUCTS)[rng.integers(0, 4, L)])),
-        "l_shipmode": _col_str(Char(10), list(
-            np.array(MODES)[rng.integers(0, 7, L)])),
-        "l_comment": _col_str(VarChar(44), _text_column(rng, L, 2, 5)),
+        "l_shipinstruct": _col_cat(Char(25), INSTRUCTS, rng.integers(0, 4, L)),
+        "l_shipmode": _col_cat(Char(10), MODES, rng.integers(0, 7, L)),
+        "l_comment": _text_col(VarChar(44), rng, L, 2, 5),
     })
 
     # ---- orders columns derived from lineitems ----
@@ -327,10 +395,10 @@ def generate(scale: float = 0.01, seed: int = 0) -> Dict[str, TableData]:
     np.add.at(totals6, order_idx,
               l_extp_c.astype(np.int64) * (100 + l_tax_u) * (100 - l_disc_u))
     f_cnt = np.zeros(O, np.int64)
-    np.add.at(f_cnt, order_idx, (ls == "F").astype(np.int64))
-    status = np.where(f_cnt == lines_per, "F",
-                      np.where(f_cnt == 0, "O", "P"))
-    out["orders"].columns["o_orderstatus"] = _col_str(Char(1), list(status))
+    np.add.at(f_cnt, order_idx, (~open_line).astype(np.int64))
+    status = np.where(f_cnt == lines_per, 0, np.where(f_cnt == 0, 1, 2))
+    out["orders"].columns["o_orderstatus"] = _col_cat(
+        Char(1), ["F", "O", "P"], status)
     out["orders"].columns["o_totalprice"] = _col(MONEY, (totals6 + 5000) // 10000)
 
     return out

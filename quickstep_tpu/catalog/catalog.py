@@ -51,7 +51,8 @@ class CatalogRelationStatistics:
 @dataclasses.dataclass
 class PartitionScheme:
     """Table partitioning (reference PartitionScheme.hpp:53): hash/range/random on
-    attribute(s). On TPU this records the intended row-shard layout over the mesh axis."""
+    attribute(s). On the device this records the intended row-shard layout over the mesh
+    axis."""
 
     kind: str = "hash"  # hash | range | random
     attributes: List[str] = dataclasses.field(default_factory=list)

@@ -2,7 +2,7 @@
 
 One typed config object mirroring the reference's ~40 gflags spread across modules
 (cli/Flags.cpp, query_optimizer/PhysicalGenerator.cpp:139-179, storage/Flags.cpp,
-query_execution scheduler knobs) plus this engine's TPU-specific knobs.
+query_execution scheduler knobs) plus this engine's device-specific knobs.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class Config:
     visualize_plan: bool = False
     visualize_execution_dag: bool = False
     # --- execution (reference ExecutionGenerator + scheduler flags) ---
-    aggregate_hashtable_type: str = "auto"   # auto | collision_free | sort  (TPU paths)
+    aggregate_hashtable_type: str = "auto"   # auto | collision_free | sort  (device paths)
     join_hashtable_type: str = "auto"        # auto | direct | linear_open_addressing | sort_merge
     max_sample_dop: int = 16
     profile_and_report_workorder_perf: bool = False   # per-operator timing report
@@ -41,12 +41,12 @@ class Config:
     # chunk i's join compute (the InsertDestination pipelining analog). 1 =
     # single synchronous exchange.
     shuffle_overlap_chunks: int = 2
-    # --- TPU-native knobs ---
+    # --- device knobs ---
     row_capacity_bucket: int = 1024     # pad row counts to multiples of this (min bucket)
     geometric_buckets: bool = True      # bucket capacities at powers of two above the min
     collision_free_domain_limit: int = 1 << 22  # max dense group-by domain (CollisionFreeVectorTable analog)
     # direct-address join table: dense int32 array indexed by (key - lo). One
-    # scatter to build, one gather to probe — the MXU-era answer to the
+    # scatter to build, one gather to probe — the data-parallel answer to the
     # reference's SimpleScalarSeparateChainingHashTable. Allowed when the key
     # domain is bounded AND not too sparse relative to the build side (stats).
     direct_join_domain_limit: int = 1 << 27   # <=536MB int32 table (SF10 orderkey=60M)

@@ -39,9 +39,9 @@ class RowIds:
     evaluated when an operator composes maps, only at materialization
     (resolve), folding from the OUTERMOST map inward so every gather's output
     size equals the final (usually post-compaction) row count. Eager
-    composition was measured at 273 ms of Q10's 437 ms device time: three
-    row-id gathers at the probe's full 8.4M capacity for a join whose
-    aggregate input compacts to ~256k rows right after."""
+    composition costs Q10 three row-id gathers at the probe's full 8.4M
+    capacity for a join whose aggregate input compacts to ~256k rows right
+    after."""
 
     __slots__ = ("idx", "ok", "parent", "depth")
 
@@ -95,23 +95,9 @@ class LazyCol:
         self.rid = rid
 
 
-import os as _os
-
-# Pending-chain depth cap. Mutable at trace time (set_chain_depth): the
-# executor's compiler-crash fallback retries a plan with a different cap —
-# the remote AOT compiler's SIGSEGVs are shape-specific (Q18 SF10 needed
-# capped chains; Q2 SF10 needs them uncapped), so the cap is a per-plan
-# retry knob, not a single global truth.
-_CHAIN_DEPTH_CAP = int(_os.environ.get("QSTPU_CHAIN_DEPTH", "2"))
-
-
-def set_chain_depth(cap: int) -> None:
-    global _CHAIN_DEPTH_CAP
-    _CHAIN_DEPTH_CAP = cap
-
-
-def default_chain_depth() -> int:
-    return int(_os.environ.get("QSTPU_CHAIN_DEPTH", "2"))
+# Pending-chain depth cap: deeper gather chains resolve eagerly at the next
+# composition. Its best value on the GPU is unmeasured.
+_CHAIN_DEPTH_CAP = 2
 
 
 def _is_lazy(v) -> bool:
@@ -139,10 +125,8 @@ def compose_slots(src: "Chunk", take_idx, take_ok) -> Dict[int, LazyCol]:
             r = comp.get(id(v.rid))
             if r is None:
                 r = RowIds(take_idx, take_ok, parent=v.rid)
-                # cap pending depth (default 2): longer gather chains fused
-                # at SF10-class widths reproducibly SIGSEGV the remote
-                # XLA:TPU compiler (Q18, 67M-row capacity) — resolving here
-                # restores the eager cost for deeper levels only
+                # cap pending depth: resolving here restores the eager cost
+                # for deeper levels only
                 if r.depth > _CHAIN_DEPTH_CAP:
                     r.resolve()
                 comp[id(v.rid)] = r

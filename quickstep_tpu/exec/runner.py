@@ -1,6 +1,6 @@
 """PlanRunner: traces a logical plan into one JAX computation.
 
-This is the TPU-native replacement for the reference's entire query_execution/ layer
+This is the device-side replacement for the reference's entire query_execution/ layer
 (ForemanSingleNode + Worker threads + WorkOrders + QueryManager state machine,
 query_execution/README.md): instead of dispatching one WorkOrder per storage block to
 worker threads, the whole operator DAG is traced into a single XLA program per query —
@@ -80,12 +80,6 @@ class JoinOverride:
     shuffle_factor: int = 1           # bucket-capacity escalation on shuffle overflow
     no_compact_probe: bool = False    # estimate-driven pre-join compaction
     no_compact_build: bool = False    # overflowed: run at full capacity
-    # plan-wide (id -1): installed by the executor's remote-compiler-crash
-    # fallback ladder (shape-specific AOT helper SIGSEGVs): first a tighter
-    # compaction cushion, then an uncapped lazy-gather chain depth — each
-    # changes the fused shapes enough to compile the observed crashers.
-    compact_factor: Optional[float] = None
-    chain_depth: Optional[int] = None
 
 
 class PlanRunner:
@@ -370,9 +364,9 @@ class PlanRunner:
 
         # Decide FD-deferral BEFORE evaluating any key: evaluating a deferred
         # key would issue its full-capacity gather even though the sort path
-        # never reads it (profiled on Q18: one ~72ms 8.4M-row gather PER key
-        # column — ensure() batches within one call, not across the per-key
-        # _eval calls). Deferral needs: outside the minimal sort cover,
+        # never reads it (on Q18: one 8.4M-row gather PER key column —
+        # ensure() batches within one call, not across the per-key _eval
+        # calls). Deferral needs: outside the minimal sort cover,
         # a plain Attr over a non-null slot with the output dtype.
         keep = self._reduce_group_keys(node.group_by, chunk)
         defer = set()
@@ -472,10 +466,10 @@ class PlanRunner:
             domain *= (r[1] - r[0] + 1)
             if domain > self.config.collision_free_domain_limit:
                 return False
-        # Above the broadcast variant's reach, dense means SCATTER-adds —
-        # measured 74ms per 1M rows on v5e (Q15's 10k-supplier group-by,
-        # round-4 fusion profile) vs ~5ms for the payload sort + prefix
-        # path. The sort path also rides pre-aggregate compaction. Dense
+        # Above the broadcast variant's reach, dense means SCATTER-adds,
+        # which were far slower than the payload sort + prefix path on the
+        # earlier accelerator; unmeasured on the GPU. The sort path also
+        # rides pre-aggregate compaction. Dense
         # stays for the Q1-class tiny domains where masked broadcast
         # reductions beat everything (zero data movement).
         if domain > G.BROADCAST_DOMAIN_LIMIT:
@@ -516,7 +510,7 @@ class PlanRunner:
     def _pack_sort_key(self, key_data, key_valid, key_ranges,
                        descending=None, nulls_first=None):
         """Pack integer composite keys into one int32/int64 sort key when ranges
-        fit (TPU sort compile/run cost scales with operand count and width).
+        fit (sort compile/run cost scales with operand count and width).
         Returns None when not packable (unknown range / float keys)."""
         spans = []
         for d, r in zip(key_data, key_ranges):
@@ -1045,7 +1039,7 @@ class PlanRunner:
         Partition-rule + PartitionAwareInsertDestination + PartitionedHashTablePool
         analog (query_optimizer/rules/Partition.hpp:45-87,
         storage/PartitionedHashTablePool.hpp:49). Both sides are hash-routed by
-        join key over ICI inside one shard_map region; the join core then runs
+        join key over the interconnect inside one shard_map region; the join core then runs
         device-local. Returns None when not applicable (no mesh / small build
         side better served by broadcast / unsupported join shape)."""
         mesh = self.mesh
@@ -1155,7 +1149,7 @@ class PlanRunner:
         # mesh BEFORE the probe exchange, and probe rows that cannot match
         # are dropped pre-bucketing. For selective builds the probe bucket
         # caps shrink with the estimated pass rate (overflow-retry escalates
-        # if the estimate was wrong), cutting actual ICI exchange bytes.
+        # if the estimate was wrong), cutting actual exchange bytes.
         # Only inner/semi joins may drop probe rows (left/anti must surface
         # non-matching rows).
         use_lip = (self.config.use_lip_filters and
@@ -1183,7 +1177,7 @@ class PlanRunner:
             sel = max(min(sel, 1.0), 0.125)
         bp_c = factor * max(8, psize(Lc * sel * live_p))
         recv_p_c = n * bp_c
-        # logical ICI exchange volume: every marshaled array crosses the
+        # logical exchange volume: every marshaled array crosses the
         # all_to_all once (bucketed, so actual bytes = bucket capacity)
         probe_row_bytes = sum(jnp.asarray(a).dtype.itemsize
                               for a in p_arrays) + 1
@@ -1529,13 +1523,13 @@ class PlanRunner:
         use_direct = False
         if len(bk_data) == 1 and ranges[0] is not None:
             domain = ranges[0][1] - ranges[0][0] + 1
-            # density alone is the wrong proxy on TPU: a direct table's cost
-            # is ONE domain-sized memset+scatter, so even a build-sparse
-            # table beats the merge path (multi-pass sorts over the probe)
-            # whenever the domain is small next to the probe. Without the
+            # density alone is the wrong proxy: a direct table's cost is
+            # ONE domain-sized memset+scatter, so even a build-sparse table
+            # beats the merge path (multi-pass sorts over the probe) whenever
+            # the domain is small next to the probe. Without the
             # probe-relative clause, pre-join build compaction (which shrinks
             # build.capacity) used to flip Q10's orderkey join from direct to
-            # merge and cost +84ms.
+            # merge.
             use_direct = (domain <= self.config.direct_join_domain_limit and
                           (domain <= self.config.direct_join_density *
                            build.capacity or
@@ -1683,8 +1677,8 @@ class PlanRunner:
             # ON-clause semantics: a probe row is matched only when some
             # key-matched candidate ALSO passes the residual; otherwise it is
             # kept once (k == 0 slot) with a null build side.
-            # Strided ORs instead of a [n, K] reshape: 2-D arrays with a
-            # small last dim are lane-padded to 128 by the TPU tiling.
+            # Strided ORs instead of a [n, K] reshape (a 2-D array with a
+            # small last dim was lane-padded on the earlier accelerator).
             has_match = out.alive[0::max_matches]
             for k in range(1, max_matches):
                 has_match = has_match | out.alive[k::max_matches]
@@ -1802,10 +1796,8 @@ class PlanRunner:
             return chunk
         if chunk.capacity <= 4096:
             return chunk
-        ovg = self.overrides.get(-1)
-        factor = ovg.compact_factor if ovg is not None and \
-            ovg.compact_factor is not None else self.config.join_compact_factor
-        target = max(K.next_pow2(int(factor * est) + 1), 1024)
+        target = max(K.next_pow2(
+            int(self.config.join_compact_factor * est) + 1), 1024)
         if chunk.bound is not None:
             target = min(target, K.next_pow2(chunk.bound))
         if target >= chunk.capacity:
@@ -1821,8 +1813,8 @@ class PlanRunner:
 
     def _compact_chunk(self, chunk: Chunk, target: int) -> Chunk:
         """Gather live rows into a smaller static capacity (sound only when
-        `target` >= the chunk's static live-row bound). Payload-carrying sort
-        beats scatters on TPU (see K.compact_order)."""
+        `target` >= the chunk's static live-row bound), by one payload-carrying
+        sort (see K.compact_order)."""
         quantum = 8
         if self.mesh is not None:
             quantum = max(quantum, int(self.mesh.devices.size))

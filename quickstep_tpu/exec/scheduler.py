@@ -1,11 +1,11 @@
 """Multi-query admission + scheduling policy + execution statistics.
 
-TPU-native successor of the reference's query_execution/ policy layer:
+Device-side successor of the reference's query_execution/ policy layer:
 
 - `PolicyEnforcer` — admission control and fair dispatch across sessions
   (PolicyEnforcerBase/SingleNode, query_execution/PolicyEnforcerBase.hpp:51,
   PolicyEnforcerSingleNode.cpp:42-56: concurrent admission, fair per-query
-  round-robin). On TPU the unit of dispatch is a whole compiled query program
+  round-robin). On the device the unit of dispatch is a whole compiled query program
   rather than a WorkOrder, and the single device serializes execution — so
   fairness means: admit up to `max_concurrent_queries`, order admitted work by
   (priority DESC, least-recently-served session, arrival).

@@ -2,8 +2,8 @@
 
 The reference runs data bigger than RAM through its buffer pool — blocks fault
 in and evict on demand (storage/StorageManager.hpp:84, EvictionPolicy.hpp:43,
-README.md:8 "data sets larger than RAM"). A TPU cannot fault mid-kernel, so the
-TPU-native equivalent is *segment streaming*: when a query's dominant table
+README.md:8 "data sets larger than RAM"). A device kernel cannot fault mid-kernel, so the
+device-side equivalent is *segment streaming*: when a query's dominant table
 exceeds the HBM budget, the plan's scan->filter->probe->aggregate prefix runs
 once per row-segment (host->HBM transfer per segment, same compiled program),
 partial aggregates merge on a final small pass, and everything above the
@@ -498,9 +498,9 @@ def segment_minmax(rel, col: str, seg_rows: int, n_segments: int):
 
 
 class AdaptiveProber:
-    """Runtime-adaptive filter probe ordering — the TPU-native analog of the
+    """Runtime-adaptive filter probe ordering — the device-side analog of the
     reference's LIPFilterAdaptiveProber (utility/lip_filter/
-    LIPFilterAdaptiveProber.hpp:51,89). On TPU the device predicate is one
+    LIPFilterAdaptiveProber.hpp:51,89). On the device the predicate is one
     fused vector program (no short-circuit to reorder), so the adaptive
     surface is the HOST side of streamed scans: SMA segment-pruning conjuncts
     are probed in decreasing OBSERVED reject rate, re-estimated as segments

@@ -1,6 +1,6 @@
 """Resolved scalar/predicate expression IR with vectorized JAX evaluation.
 
-The TPU-native replacement for BOTH the reference's optimizer expression IR
+The device-side replacement for BOTH the reference's optimizer expression IR
 (query_optimizer/expressions/, AttributeReference with global ExprId) and its runtime
 expression trees (expressions/scalar/Scalar.hpp:51 getAllValues -> ColumnVector;
 expressions/predicate/Predicate.hpp:47 getAllMatches -> TupleIdSequence). One IR serves
@@ -450,7 +450,7 @@ class ExtractDate(Expr):
         if self.field == "hour":
             return ((us // 3_600_000_000) % 24).astype(jnp.int32), v
         # year/month/day require civil-date conversion (Howard Hinnant algorithm,
-        # branchless — vectorizes cleanly on the VPU).
+        # branchless — vectorizes cleanly).
         days = (us // 86_400_000_000).astype(jnp.int64)
         z = days + 719468
         era = jnp.floor_divide(jnp.where(z >= 0, z, z - 146096), 146097)
@@ -503,7 +503,7 @@ class DictBitmapProbe(Expr):
     """String predicate evaluated on the ordered dictionary: `bitmap[code]`.
 
     LIKE / REGEXP / IN-over-strings become a host-computed bool bitmap over dictionary
-    codes; on device the probe is a single gather — the TPU analog of the reference
+    codes; on device the probe is a single gather — the device analog of the reference
     evaluating comparisons directly on compressed codes
     (compression/CompressionDictionary.hpp:64) and of LIP bitmap probing.
     """
@@ -606,7 +606,7 @@ class DateArith(Expr):
 class DictMatrixProbe(Expr):
     """Two-column string predicate (e.g. `email LIKE pattern` where both sides
     are dictionary columns): a host-precomputed bool matrix over the two
-    dictionaries, probed on device as a flat gather — the TPU analog of the
+    dictionaries, probed on device as a flat gather — the device analog of the
     reference's per-row re2 matching (PatternMatchingComparison.cpp)."""
     lhs: Expr = None
     rhs: Expr = None

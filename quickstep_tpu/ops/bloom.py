@@ -1,13 +1,13 @@
 """LIP / bloom filters.
 
-TPU-native successors of the reference's lookahead-information-passing filters
+Device-side successors of the reference's lookahead-information-passing filters
 (utility/lip_filter/: BitVectorExactFilter.hpp:53 — exact bit per key in [min,max],
 giving exact semi-joins; SingleIdentityHashFilter.hpp:55 — one-hash bloom; BloomFilter
 .hpp:48). A filter is a bool occupancy array in HBM: build is one masked scatter,
 probe is one gather — XLA fuses the probe into the consuming scan, which is exactly
 the LIP effect (filter rows before they reach the join). vs the reference's packed
 bit-vectors: byte-per-slot costs 8x memory but builds in a single conflict-free
-scatter (no atomic word OR), the right trade on TPU.
+scatter (no atomic word OR).
 
 The executor uses the exact variant for semi/anti joins over single integer keys with
 plan-time ranges (FilterJoin strength reduction, rules/InjectJoinFilters.hpp:55

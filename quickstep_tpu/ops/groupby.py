@@ -1,11 +1,10 @@
 """Group-by aggregation kernels.
 
-The TPU-native successors of the reference's four aggregation hash tables
+The device-side successors of the reference's four aggregation hash tables
 (storage/CollisionFreeVectorTable.hpp:55, PackedPayloadHashTable.hpp:70,
 ThreadPrivateCompactKeyHashTable.hpp:51, HashTablePool.hpp:52):
 
-- `dense_groupby` — the CollisionFreeVectorTable analog, a literal perfect fit for
-  TPU: composite keys are radix-packed into a small integer domain and every aggregate
+- `dense_groupby` — the CollisionFreeVectorTable analog: composite keys are radix-packed into a small integer domain and every aggregate
   becomes one masked scatter-add/min/max into a dense state array. Chosen by the
   planner when plan-time key ranges bound the domain (cost-model gate mirroring
   ExecutionGenerator::canUseCollisionFreeAggregation,
@@ -48,22 +47,16 @@ def pack_dense_index(key_cols: List[jnp.ndarray], key_offsets: List[int],
 
 
 # Below this domain size, aggregate via broadcast-compare reductions (D full
-# passes on the VPU) instead of scatters: TPU lowers colliding scatter-adds to a
-# slow serialized path, while D x N elementwise work vectorizes perfectly.
+# elementwise passes) instead of colliding scatter-adds. The earlier
+# accelerator serialized such scatters; a GPU adds atomically, and which form
+# wins there is unmeasured.
 BROADCAST_DOMAIN_LIMIT = 128
 
 
 def dense_groupby(idx: jnp.ndarray, domain: int, agg_specs: List[AggIn],
                   alive: jnp.ndarray):
     """Collision-free aggregation: idx from pack_dense_index. Returns
-    (occupied bool[domain], [(data[domain], nn_count[domain])...]).
-
-    A hand-written Pallas variant of this path was evaluated round-5 and
-    removed: the measured calibration ladder (tools/calibrate.py) shows the
-    XLA masked-reduce lowering already runs within 4% of the chip's pure
-    reduce bandwidth, and the Pallas kernels either crashed the remote AOT
-    TPU compiler (scratch-carry grid) or ran 2x slower (partial-output
-    form). XLA does not fall short here."""
+    (occupied bool[domain], [(data[domain], nn_count[domain])...])."""
     if domain <= BROADCAST_DOMAIN_LIMIT:
         return _dense_groupby_broadcast(idx, domain, agg_specs, alive)
     return _dense_groupby_scatter(idx, domain, agg_specs, alive)
@@ -72,7 +65,7 @@ def dense_groupby(idx: jnp.ndarray, domain: int, agg_specs: List[AggIn],
 def _dense_groupby_broadcast(idx, domain: int, agg_specs: List[AggIn],
                              alive: jnp.ndarray):
     """One-hot membership (domain, n) + per-group masked reductions — zero
-    scatters, the TPU-native CollisionFreeVectorTable."""
+    scatters, the device-side CollisionFreeVectorTable."""
     in_dom = idx < domain
     onehot = (idx[None, :] == jnp.arange(domain, dtype=idx.dtype)[:, None])
     results = []
@@ -150,8 +143,7 @@ def _seg_fill(marks: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
     mark and non-mark rows contribute 0, so the cummax propagates exactly the
     latest mark's bits — value bits are ballast, never compared (each segment
     has ONE mark). Rows before the first mark decode to zero-bits. 64-bit
-    values ride as two independent halves. cummax runs at memory speed on
-    v5e; the gather this replaces costs ~73ms per 8.4M rows."""
+    values ride as two independent halves. Replaces a random gather."""
     r = jnp.cumsum(marks.astype(jnp.int32)).astype(jnp.int64)
 
     def fill_field(field64):   # field64: int64 values in [0, 2^32)
@@ -159,9 +151,9 @@ def _seg_fill(marks: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
         return jax.lax.cummax(packed) & jnp.int64(0xFFFFFFFF)
 
     dt = vals.dtype
-    # NO 64-bit bitcasts anywhere: bitcast_convert_type on 64-bit types
-    # SIGSEGVs the TPU compiler under x64 emulation (same limitation
-    # multi_gather documents); everything below is plain int64 arithmetic.
+    # NO 64-bit bitcasts anywhere (the earlier accelerator's x64 emulation
+    # could not compile them; no GPU reason is known); everything below is
+    # plain int64 arithmetic.
     if dt == jnp.float32:
         iv = jax.lax.bitcast_convert_type(vals, jnp.uint32)  # 32-bit: fine
         out = fill_field(iv.astype(jnp.int64))
@@ -210,9 +202,9 @@ def sort_groupby(key_cols: List[jnp.ndarray],
                  want_rows: bool = False):
     """Sort-based group-by, gather/scatter-free.
 
-    TPU-shaped: ONE payload-carrying `lax.sort` moves the key(s) and every
-    aggregate input together (payload operands cost ~2ms/1M rows on v5e vs
-    ~15ms per post-hoc random gather), then per-segment results come from
+    ONE payload-carrying `lax.sort` moves the key(s) and every aggregate
+    input together (instead of a random gather per input after the sort),
+    then per-segment results come from
     segmented associative scans — no colliding scatters, no random gathers,
     no compaction. Group outputs live at each segment's LAST sorted row.
 
@@ -299,11 +291,9 @@ def sort_groupby(key_cols: List[jnp.ndarray],
     nxt_alive = jnp.roll(s_alive, -1)
     last = s_alive & ((iota == capacity - 1) | nxt_change | ~nxt_alive)
 
-    # Segmented reductions WITHOUT jax.lax.associative_scan (the generic
-    # scan's custom combine explodes the XLA:TPU compile — measured: an
-    # 8M-row associative_scan compiles for hours while cumsum/cummax/sort
-    # compile in minutes) and WITHOUT random gathers (the former
-    # base-prefix gather cost ~73ms per 8.4M rows per operand group):
+    # Segmented reductions WITHOUT jax.lax.associative_scan (its custom
+    # combine compiled for hours on the earlier accelerator; unmeasured on
+    # the GPU) and WITHOUT random gathers:
     #   SUM/COUNT — native prefix cumsum; per-segment total at each row is
     #     S[row] - S[segment_start - 1]. The base S[start-1] equals
     #     (S - contrib) AT the segment-start row, propagated to the rest of
@@ -322,8 +312,8 @@ def sort_groupby(key_cols: List[jnp.ndarray],
     def seg_sum(contrib):
         S = jnp.cumsum(contrib)
         if S.dtype == jnp.float64:
-            # f64 can't ride _seg_fill (64-bit bitcasts crash the TPU
-            # compiler): fetch the segment base with a gather instead
+            # f64 can't ride _seg_fill (no 64-bit bitcasts, see above):
+            # fetch the segment base with a gather instead
             base_idx = jnp.clip(seg_start - 1, 0, capacity - 1)
             base = jnp.where(seg_start <= 0, jnp.zeros((), S.dtype),
                              S[base_idx])

@@ -1,6 +1,6 @@
 """Join kernels.
 
-TPU-native successors of the reference's join hash tables and work orders
+Device-side successors of the reference's join hash tables and work orders
 (storage/HashTable.hpp:117 SeparateChaining/LinearOpenAddressing/
 SimpleScalarSeparateChaining; relational_operators/HashJoinOperator.hpp:66 inner/
 semi/anti/outer). No pointers, no chaining — three paths, all static-shape:
@@ -46,11 +46,11 @@ def direct_build(key: jnp.ndarray, alive: jnp.ndarray, lo: int, domain: int):
     in_dom = alive & (idx >= 0) & (idx < domain)
     idx = jnp.where(in_dom, idx, domain)
     rows = jnp.arange(key.shape[0], dtype=jnp.int32)
-    # unique_indices: the planner picks this path for unique build keys, and
-    # TPU scatters without the flag take a serialized collision-safe path
-    # (~125ns/row measured). If keys are unexpectedly duplicated the winner
-    # is unspecified, but the read-back below still raises the dup flag and
-    # the executor retries on the expansion path.
+    # unique_indices: the planner picks this path for unique build keys. If
+    # keys are unexpectedly duplicated the winner is unspecified, but every
+    # slot still holds one of its rows (int32 stores are not torn), so the
+    # read-back below raises the dup flag and the executor retries on the
+    # expansion path — checked on an H100 by chip_smoke.dup_join_phase.
     table = jnp.full((domain,), -1, jnp.int32).at[idx].set(
         rows, mode="drop", unique_indices=True)
     # duplicate detection without a colliding scatter: a row that lost its slot
@@ -192,9 +192,8 @@ def merge_starts(sorted_key: jnp.ndarray, probe_key: jnp.ndarray):
     prefix arithmetic, with NO random gathers.
 
     Why not jnp.searchsorted: binary search lowers to log2(n) rounds where
-    every round is a full random-gather pass over the probe vector (~60ms per
-    8M rows on v5e x ~23 rounds ~ 1.4s per call); this merge formulation is
-    two lax.sorts (~25ms each at 8M) and a few cumsums. The classic
+    every round is a full random-gather pass over the probe vector; this
+    merge formulation is two lax.sorts and a few cumsums. The classic
     sort-merge-join counting trick: concat (build, probe) tagged, stable-sort
     by (key, tag); at a probe element, #builds before it = its merged rank
     minus its probe rank, and the builds of its own equal-key run all precede
@@ -231,8 +230,8 @@ def expand_probe(sorted_key: jnp.ndarray, order: jnp.ndarray,
     """For each probe row, the run [start, end) of equal build keys; returns
     (build_rows int32[n*K] flat, row-major (-1 pads), match_counts [n]).
 
-    All intermediates stay 1-D: a 2-D [n, K<128] int32 would be lane-padded
-    to [n, 128] by the TPU tiling — 34GB for a 67M-row probe at SF10."""
+    All intermediates stay 1-D (a 2-D [n, K<128] int32 was lane-padded on
+    the earlier accelerator; no GPU reason is known)."""
     n = probe_key.shape[0]
     start, count = merge_starts(sorted_key, probe_key)
     count = jnp.where(alive, count, 0)
@@ -253,10 +252,9 @@ def merge_stats_probe(packed_build: jnp.ndarray, bmask: jnp.ndarray,
     segmented scans and a sort-back. No group materialization, no
     binary-search rounds, no random gathers: replaces the former
     sort_groupby + merge_unique_probe + stats-gather pipeline (~5 full-width
-    gathers at ~73ms each per 8M rows on v5e) with two sorts and log(n)
-    vector passes. The reference's equivalent is a full hash build + bulk
-    probe (storage/HashTable.hpp:117 getAllFromValueAccessor) — on TPU the
-    merge formulation is the memory-speed path.
+    gathers) with two sorts and log(n) vector passes. The reference's
+    equivalent is a full hash build + bulk probe (storage/HashTable.hpp:117
+    getAllFromValueAccessor).
 
     Build rows tag-sort before probe rows inside an equal-key run, so a probe
     position's running segmented min/max covers exactly the live build rows
@@ -279,12 +277,11 @@ def merge_stats_probe(packed_build: jnp.ndarray, bmask: jnp.ndarray,
         (keys, tag, iota, vmin), num_keys=2, is_stable=True)
     pos = jnp.arange(nb + n_probe, dtype=jnp.int32)
     seg = (pos == 0) | (s_key != jnp.roll(s_key, 1))
-    # Segmented running min/max WITHOUT lax.associative_scan (whose unrolled
-    # log-n lowering makes TPU compile time scale with n — observed 59s at
-    # 2^20, unusable at query sizes): pack (run_id << 32 | biased value) and
-    # take ONE native int64 cummax per stat — a higher run_id always wins, so
-    # the cummax restarts at segment boundaries by construction. cummax runs
-    # at memory speed on v5e (~0.07ms per 16.8M rows measured).
+    # Segmented running min/max WITHOUT lax.associative_scan (its unrolled
+    # log-n lowering compiled slowly on the earlier accelerator): pack
+    # (run_id << 32 | biased value) and take ONE native int64 cummax per
+    # stat — a higher run_id always wins, so the cummax restarts at segment
+    # boundaries by construction.
     run_id = jnp.cumsum(seg.astype(jnp.int32)).astype(jnp.int64)
     contrib = s_tag == 0          # only build rows carry values
     v64 = s_vmin.astype(jnp.int64)
@@ -321,7 +318,7 @@ def merge_cmp_probe(packed_build: jnp.ndarray, bmask: jnp.ndarray,
     equal-key run contain a live build row x with (pval OP x)? Decided from
     the run's min/max (merge_stats_probe machinery) with the comparison
     evaluated IN SORTED ORDER, so the sort-back carries ONE int32
-    (iota << 1 | hit) instead of three stat payloads — TPU sort cost scales
+    (iota << 1 | hit) instead of three stat payloads — sort cost scales
     with operand count. Returns matched&hit bool in probe order.
     (Q21's correlated <>/</> EXISTS; reference bar: bulk hash probe,
     relational_operators/HashJoinOperator.hpp:420-422.)"""
@@ -385,7 +382,7 @@ def merge_unique_probe(packed_build: jnp.ndarray, bmask: jnp.ndarray,
     (build_row_idx (-1 if none), matched, dup) where dup flags duplicate live
     build keys (the executor's cue to retry on the expansion path — the
     kOutOfSpace analog). Replaces the open-addressing lockstep probe loop,
-    whose per-round full gather passes dominate join time on TPU."""
+    whose per-round full gather passes dominate its join time."""
     sorted_key, order = sorted_build(packed_build, bmask)
     sent = jnp.iinfo(sorted_key.dtype).max
     live_sorted = sorted_key != sent

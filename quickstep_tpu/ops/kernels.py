@@ -17,8 +17,8 @@ import jax.numpy as jnp
 # Trace-time op counters (the WorkOrder profiling analog,
 # query_execution/PolicyEnforcerBase.cpp:45 recordTimeForWorkOrder): counted
 # host-side while a plan traces, snapshotted per compiled program by the
-# executor and surfaced in \explain_analyze — gather count is the unit of
-# join-path cost on TPU (random HBM access passes).
+# executor and surfaced in \explain_analyze — each gather is one random
+# device-memory access pass.
 TRACE = {"gathers": 0, "gather_rows": 0}
 
 
@@ -44,16 +44,17 @@ def compact_indices(mask: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 def scatter_compact(col: jnp.ndarray, dest: jnp.ndarray,
                     capacity: int, fill=0) -> jnp.ndarray:
     """Scatter col[i] -> out[dest[i]]; dest == capacity drops. Compaction
-    destinations are unique by construction — declare it so XLA takes the
-    parallel scatter path on TPU."""
+    destinations are unique by construction; the dropped rows all share the
+    one out-of-range index, which the bounds check discards."""
     out = jnp.full((capacity,) + col.shape[1:], fill, dtype=col.dtype)
     return out.at[dest].set(col, mode="drop", unique_indices=True)
 
 
 def _lane_dtype(dt) -> jnp.dtype:
     """Canonical gather-lane dtype. 64-bit types keep their own lane dtype
-    (TPU's X64 emulation forbids 64-bit bitcasts); 32-bit types share int32
-    lanes; sub-byte/bool share int8 lanes."""
+    (the earlier accelerator's x64 emulation forbade 64-bit bitcasts; no
+    GPU reason is known); 32-bit
+    types share int32 lanes; sub-byte/bool share int8 lanes."""
     dt = jnp.dtype(dt)
     if dt.itemsize == 8:
         return dt
@@ -79,42 +80,40 @@ def _from_lane(d: jnp.ndarray, dt) -> jnp.ndarray:
     return d.astype(dt)
 
 
-# Padded-size ceiling for 2-D row-packed gathers (see multi_gather). Module
+# Size ceiling for 2-D row-packed gathers (see multi_gather). Module
 # mutable: the executor can tighten it when running under a strict HBM budget
 # (streamed SF10+ plans keep headroom for their working sets).
 PACK_PAD_LIMIT = 5 << 30
+
+
+def pack_bytes(n: int, k: int, lane) -> int:
+    """Device bytes of an [n, k] row pack of `lane` dtype: a GPU stores it
+    unpadded."""
+    return n * k * jnp.dtype(lane).itemsize
 
 
 def multi_gather(cols: List[Optional[jnp.ndarray]], idx: jnp.ndarray):
     """Gather many equal-length columns by ONE index vector using row-packed
     gathers (one [n, k] gather per lane dtype instead of k 1-D gathers).
 
-    On TPU, k separate 1-D gathers each pay a full random-access pass
-    (~15ms/1M rows measured on v5e), while a row gather amortizes the
-    per-index cost across lanes (~6x faster at k=4). Columns are grouped by
-    canonical lane dtype (64-bit kinds keep their own group — TPU's X64
-    emulation cannot bitcast 64-bit types). None entries pass through (absent
-    null masks)."""
+    k separate 1-D gathers each pay a random-access pass over the index,
+    while a row gather shares it across the k lanes. Whether the pack wins on
+    the GPU is unmeasured. Columns are grouped by canonical lane dtype (64-bit
+    kinds keep their own group, see _lane_dtype). None entries pass through
+    (absent null masks)."""
     out = list(cols)
     groups: dict = {}
     for i, c in enumerate(cols):
         if c is None:
             continue
         groups.setdefault(_lane_dtype(c.dtype), []).append(i)
-    # TPU (8,128) tiling pads a 2-D pack's minor dim to 128 lanes (and XLA's
-    # gather canonicalization transposes [k, n] packs right back), so a row
-    # pack at large n allocates 128/k times its logical bytes — 34GB for one
-    # int32 column at SF10's 67M rows. Cap the padded size; above it, issue
-    # plain per-column 1-D gathers (no padding, k passes). Measured on v5e
-    # (tools/gather_bench.py, 8.4M rows x 4 cols): 2-D pack 108ms vs 293ms
-    # per-column — the pack wins 2.7x wherever it fits, so the cap is set to
-    # admit SF1-scale sources (8.4M x 128 x 4B = 4.3GB transient) while
-    # SF10-scale (67M -> 34GB) still falls back.
     n_src = next((c.shape[0] for c in cols if c is not None), 0)
     m_idx = idx.shape[0]
     for lane, idxs in groups.items():
-        padded = max(n_src, m_idx) * 128 * jnp.dtype(lane).itemsize
-        if len(idxs) == 1 or padded > PACK_PAD_LIMIT:
+        # the [n, k] pack is a transient copy of the group; above the cap,
+        # issue plain per-column 1-D gathers (no copy, k passes)
+        if len(idxs) == 1 or \
+                pack_bytes(max(n_src, m_idx), len(idxs), lane) > PACK_PAD_LIMIT:
             TRACE["gathers"] += len(idxs)
             TRACE["gather_rows"] += m_idx * len(idxs)
             for i in idxs:
@@ -131,8 +130,9 @@ def multi_gather(cols: List[Optional[jnp.ndarray]], idx: jnp.ndarray):
 
 def compact_order(alive: jnp.ndarray) -> jnp.ndarray:
     """Stable permutation putting live rows first (gather-based compaction).
-    A payload-carrying sort beats per-column scatters on TPU: scatters
-    (even unique_indices) run ~5x slower than gathers."""
+    One payload-carrying sort instead of a scatter per column; the choice
+    was made for the earlier accelerator's slow scatters and is unmeasured
+    on the GPU against compact_indices + scatter_compact."""
     capacity = alive.shape[0]
     iota = jnp.arange(capacity, dtype=jnp.int32)
     _, order = jax.lax.sort(((~alive).astype(jnp.int8), iota),
@@ -141,7 +141,7 @@ def compact_order(alive: jnp.ndarray) -> jnp.ndarray:
 
 
 def hash64(x: jnp.ndarray) -> jnp.ndarray:
-    """SplitMix64 finalizer — the TPU analog of farmhash in the reference
+    """SplitMix64 finalizer — the device analog of farmhash in the reference
     (utility/BloomFilter.hpp uses farmhash; exact function is irrelevant, mixing
     quality is)."""
     h = x.astype(jnp.uint64)

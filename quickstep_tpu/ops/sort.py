@@ -1,8 +1,8 @@
 """Sort kernels (ORDER BY / DISTINCT / set ops).
 
-TPU-native successor of the reference's two-phase external sort
+Device-side successor of the reference's two-phase external sort
 (relational_operators/SortRunGenerationOperator.hpp:76 per-block runs +
-SortMergeRunOperator.hpp:72 k-way merge): on TPU a single vectorized lexsort over
+SortMergeRunOperator.hpp:72 k-way merge): on the device a single vectorized lexsort over
 whole columns replaces run generation + merge — XLA lowers jnp.lexsort/argsort to its
 parallel sorter. Descending order and NULLS FIRST/LAST are handled by key transforms
 so one ascending sorter serves everything. LIMIT uses the same sort then a static

@@ -1,6 +1,6 @@
 """Window aggregation kernels.
 
-TPU-native successor of the reference's window aggregates
+Device-side successor of the reference's window aggregates
 (expressions/window_aggregation/WindowAggregationHandle*, executed sequentially in ONE
 WorkOrder over the whole relation — WindowAggregationOperator.cpp:37-52). Here the
 whole computation is vectorized: sort rows by (partition, order) keys, run a segmented
@@ -74,8 +74,8 @@ def _range_query_minmax(c, lo, hi, is_min):
 
 def _segmented_scan(vals: jnp.ndarray, seg_start: jnp.ndarray, combine):
     """Inclusive segmented prefix scan: resets at rows where seg_start is
-    True. Implemented WITHOUT jax.lax.associative_scan (whose custom-combine
-    form explodes the XLA:TPU compile — measured hours vs minutes): sums are
+    True. Implemented WITHOUT jax.lax.associative_scan (its custom-combine
+    form compiled for hours on the earlier accelerator): sums are
     a native cumsum minus the prefix gathered at each segment's start row
     (cummax-forward-filled, so the index is monotone); min/max are a
     range query from the segment start via the doubling sparse table."""

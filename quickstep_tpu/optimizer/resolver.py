@@ -1155,8 +1155,7 @@ class Resolver:
         """Arithmetic involving a DECIMAL operand. Stay in the exact integer
         units domain when possible (+/- at one scale; * sums the scales);
         decode to DOUBLE otherwise (division, inexact literals, scale
-        overflow). This is the TPU replacement for f64 decimal math — v5e
-        emulates f64, so every op kept integer runs at native VPU speed."""
+        overflow). Integer units keep DECIMAL sums exact on any device."""
         lt, rt = lhs.type, rhs.type
         nullable = lt.nullable or rt.nullable
         if op in ("+", "-"):

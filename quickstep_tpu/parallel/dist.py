@@ -1,6 +1,6 @@
 """Distributed query execution primitives (round-1: SPMD aggregate + broadcast join).
 
-The TPU-native replacement for the reference's distributed execution stack
+The device-side replacement for the reference's distributed execution stack
 (ForemanDistributed routing WorkOrder protos to Shiftbosses with block locality,
 query_execution/ForemanDistributed.cpp:362-427; partitioned hash tables,
 storage/PartitionedHashTablePool.hpp:49): instead of shipping work orders, the query

@@ -1,6 +1,6 @@
 """Device mesh + table sharding utilities.
 
-The TPU-native replacement for the reference's PartitionScheme + NUMAPlacementScheme +
+The device-side replacement for the reference's PartitionScheme + NUMAPlacementScheme +
 Shiftboss topology (catalog/PartitionScheme.hpp:53, NUMAPlacementScheme.hpp:61,
 query_execution/ForemanDistributed.cpp): a 1-D `jax.sharding.Mesh` over chips; big
 tables are row-sharded (hash/random partitioning becomes contiguous row sharding since

@@ -4,8 +4,8 @@ The reference's distributed mode runs one Conductor (parse/optimize/route) and N
 Executor processes (Shiftboss + Workers + block exchange), coordinating over TMB/
 gRPC and pulling blocks peer-to-peer (cli/distributed/Conductor.hpp:47,
 Executor.hpp:46; query_execution/ForemanDistributed.cpp:362-427;
-storage/DataExchange.proto:22). The TPU-native replacement is SPMD at the process
-level, matching how JAX pods actually run:
+storage/DataExchange.proto:22). The replacement here is SPMD at the process
+level, matching how multi-host JAX programs run:
 
 - every host process runs the SAME driver (parse -> optimize -> jit): the query
   plan is deterministic, so compiling it on each host replaces shipping
@@ -15,14 +15,15 @@ level, matching how JAX pods actually run:
   across the GLOBAL mesh, each process materializing only its local rows
   (block-locality analog: data lives where it is scanned);
 - cross-host data movement is XLA collectives inserted by the GSPMD
-  partitioner (ICI/DCN), replacing DataExchangerAsync block pulls;
+  partitioner (NVLink within a host, the network across hosts), replacing
+  DataExchangerAsync block pulls;
 - query results are replicated (an all-gather at the program tail), so every
   process can print/serve them — process 0 is the conventional "conductor"
   (it owns the REPL / network CLI).
 
 Bootstrap: call `bootstrap(coordinator, num_processes, process_id)` before
 creating the Database, or rely on env vars (QSTPU_COORDINATOR, QSTPU_NUM_PROCS,
-QSTPU_PROC_ID). On real pods `jax.distributed.initialize()` auto-detects.
+QSTPU_PROC_ID). Nothing is auto-detected on a plain GPU host: give all three.
 """
 
 from __future__ import annotations
@@ -47,14 +48,12 @@ def bootstrap(coordinator_address: Optional[str] = None,
     if process_id is None:
         pid = os.environ.get("QSTPU_PROC_ID")
         process_id = int(pid) if pid is not None else None
-    kwargs = {}
-    if local_device_count is not None:
-        kwargs["num_local_devices" if hasattr(
-            jax.distributed.initialize, "num_local_devices")
-            else "local_device_ids"] = list(range(local_device_count))
+    local_ids = None if local_device_count is None \
+        else list(range(local_device_count))
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id, **kwargs)
+                               process_id=process_id,
+                               local_device_ids=local_ids)
 
 
 def is_multiprocess() -> bool:
@@ -81,8 +80,8 @@ def make_global_array(arr: np.ndarray, sharding):
 
 def all_gather_to_host(tree):
     """Fetch possibly cross-process-sharded arrays to every host: jit an
-    identity with replicated out_shardings (an all-gather over DCN/ICI), then
-    device_get the fully-replicated result."""
+    identity with replicated out_shardings (an all-gather across
+    processes), then device_get the fully-replicated result."""
     from jax.sharding import NamedSharding, PartitionSpec as P
     leaves = jax.tree_util.tree_leaves(tree)
     if not leaves:

@@ -1,12 +1,12 @@
 """Key-partitioned (radix) shuffle over the device mesh.
 
-The TPU-native analog of the reference's partitioned parallelism core
+The device-side analog of the reference's partitioned parallelism core
 (query_optimizer/rules/Partition.hpp:45-87 repartition planning,
 storage/InsertDestination.hpp:75 PartitionAwareInsertDestination hash-routing,
 storage/PartitionedHashTablePool.hpp:49 per-partition hash tables): instead of
 hash-routing output tuples into per-partition blocks, each device radix-buckets
 its local rows by key hash and exchanges whole buckets with `jax.lax.all_to_all`
-over the mesh axis (ICI). After the exchange every device holds exactly the rows
+over the mesh axis (NVLink between GPUs). After the exchange every device holds exactly the rows
 whose keys hash to its partition, so joins/aggregations proceed device-local with
 no further communication — per-partition hash tables by construction.
 

@@ -1,6 +1,6 @@
 """Columns: typed host/device arrays with validity and optional dictionary.
 
-The TPU-native replacement for the reference's ColumnVector
+The device-side replacement for the reference's ColumnVector
 (types/containers/ColumnVector.hpp:71: NativeColumnVector = dense fixed-width + null
 bitmap; IndirectColumnVector = var-len values). Here every column — including strings,
 via ordered dictionary codes — is a dense fixed-width array, so there is exactly one

@@ -1,6 +1,6 @@
 """Ordered string dictionaries.
 
-The TPU-native successor of the reference's ordered CompressionDictionary
+The device-side successor of the reference's ordered CompressionDictionary
 (compression/CompressionDictionary.hpp:64): every CHAR/VARCHAR column is stored on device
 as int32 codes into a sorted dictionary, so code order == string order and all device-side
 comparisons (=, <, BETWEEN, ORDER BY, GROUP BY) operate directly on codes. Predicates
@@ -30,9 +30,8 @@ class Dictionary:
         # (kind, pattern, escape) -> bool[len(dict)]. The dictionary is
         # immutable, so a LIKE/REGEXP bitmap never changes; without this a
         # repeated query re-scans a multi-million-entry comment dictionary
-        # with the regex engine at RESOLVE time on every execution (measured:
-        # 1.1 s per execute on TPC-H Q13's 1.5M-entry o_comment at SF1 —
-        # the dominant term of VERDICT r5 #6's host wall overhead).
+        # with the regex engine at RESOLVE time on every execution (TPC-H
+        # Q13's o_comment has 1.5M entries at SF1).
         self._pred_cache = None
 
     @property
@@ -46,8 +45,12 @@ class Dictionary:
     # ---- construction ----
     @staticmethod
     def build(strings: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
-        """Build a dictionary from raw strings; returns (dict, int32 codes)."""
-        uniq, codes = np.unique(np.asarray(strings, dtype=object), return_inverse=True)
+        """Build a dictionary from raw strings; returns (dict, int32 codes).
+        A numpy unicode array is sorted as it is, which is several times
+        faster than sorting Python str objects and gives the same order."""
+        if not (isinstance(strings, np.ndarray) and strings.dtype.kind == "U"):
+            strings = np.asarray(strings, dtype=object)
+        uniq, codes = np.unique(strings, return_inverse=True)
         return Dictionary([str(u) for u in uniq]), codes.astype(np.int32)
 
     def __len__(self) -> int:

@@ -2,15 +2,19 @@
 
 The reference's TextScanOperator runs C++ field parsing across WorkOrder threads;
 this binding gives the same native parallel parse, writing directly into numpy
-buffers. Falls back silently (returns None) if the shared library is missing and
-cannot be built — callers then use the pure-Python csv path.
+buffers. The library is compiled from source at first use into `native/build/`
+(not committed), under a name keyed on the source's content and the compiler
+flags. Falls back silently (returns None) if it cannot be built — callers then
+use the pure-Python csv path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -22,6 +26,39 @@ _LIB_TRIED = False
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
+BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+# Generic x86-64/aarch64 code: the build directory can travel with a copy of
+# the checkout to another CPU.
+_CXXFLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
+
+
+def library_path(src: str = os.path.join(_NATIVE_DIR, "csv_scanner.cpp"),
+                 build_dir: str = BUILD_DIR) -> str:
+    """Path of the shared library built from `src` as it is now."""
+    h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    return os.path.join(build_dir, f"libqstpu_io-{h.hexdigest()[:16]}.so")
+
+
+def build_library(src: str = os.path.join(_NATIVE_DIR, "csv_scanner.cpp"),
+                  build_dir: str = BUILD_DIR) -> str:
+    """Compile `src` unless a build of this exact source exists; returns the
+    library path. Raises on a failed build."""
+    so = library_path(src, build_dir)
+    if os.path.exists(so):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, src],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)   # atomic: concurrent builders never see a stub
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
 
 
 def _load_library():
@@ -29,18 +66,10 @@ def _load_library():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    so = os.path.join(_NATIVE_DIR, "libqstpu_io.so")
-    src = os.path.join(_NATIVE_DIR, "csv_scanner.cpp")
-    if not os.path.exists(so) or (
-            os.path.exists(src) and
-            os.path.getmtime(src) > os.path.getmtime(so)):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-pthread", "-o", so, src],
-                check=True, capture_output=True, timeout=120)
-        except Exception:
-            return None
+    try:
+        so = build_library()
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(so)
         lib.qs_count_rows.restype = ctypes.c_int64

@@ -1,6 +1,6 @@
 """Host-side columnar tables.
 
-The TPU-native replacement for the reference's StorageBlock / TupleStorageSubBlock stack
+The device-side replacement for the reference's StorageBlock / TupleStorageSubBlock stack
 (storage/StorageBlock.hpp:62): rather than 2MB self-describing blocks with per-block
 row/column layouts, a relation's data is a single struct-of-arrays `TableData` on the host,
 padded and transferred to HBM by the executor per compiled stage. Block-level parallelism

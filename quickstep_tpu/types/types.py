@@ -104,11 +104,10 @@ class Type:
     lattice (which folds DECIMAL to DOUBLE, parser/SqlParser.ypp:791-799): here
     it is a first-class *storage encoding* — values are stored and computed as
     integers of `value * 10^scale` units (int32 when precision <= 9, else
-    int64), the TPU-native analog of the reference's per-column compressed
+    int64), the device-side analog of the reference's per-column compressed
     encodings that evaluate predicates directly on codes
     (compression/CompressionDictionary.hpp:64, storage/CompressedBlockBuilder.cpp).
-    On a TPU v5e, float64 arithmetic is software-emulated (~12% of HBM roofline
-    measured); native int32 compares/adds restore full scan bandwidth. Values
+    Integer units keep sums exact and compares and adds native-width. Values
     decode to doubles only at the result boundary.
     """
 

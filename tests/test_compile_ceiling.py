@@ -1,6 +1,6 @@
 """Compile-time regression guard: every TPC-H plan must trace to a bounded
 program (plan-shape explosions — e.g. unrolled K-candidate loops growing past
-their caps — historically produced multi-hour XLA:TPU compiles). The ceiling
+their caps — historically produced multi-hour XLA compiles). The ceiling
 is ~2x today's largest plan (Q2 at ~750 eqns)."""
 
 import jax

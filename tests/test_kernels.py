@@ -78,7 +78,7 @@ def test_expand_join():
     rows, counts = J.expand_probe(skey, order, jnp.asarray([3, 2, 7]),
                                   jnp.ones(3, bool), 4)
     assert list(np.asarray(counts)) == [3, 1, 0]
-    # rows is flat row-major [n*K] (1-D to dodge TPU lane padding)
+    # rows is flat row-major [n*K] (kept 1-D)
     got = sorted(int(r) for r in np.asarray(rows).reshape(3, 4)[0] if r >= 0)
     assert got == [0, 2, 3]
 
@@ -205,3 +205,21 @@ def test_merge_cmp_probe(op):
         sel = bval[(bkey == pkey[i]) & bmask]
         want = bool(pmask[i]) and bool(np.any(fn(pval[i], sel)))
         assert bool(got[i]) == want, (i, op)
+
+
+@pytest.mark.parametrize("limit,packed", [(768, True), (767, False)])
+def test_multi_gather_footprint(monkeypatch, limit, packed):
+    """An [n, k] row pack occupies n*k*itemsize bytes on the GPU (no lane
+    pad): under PACK_PAD_LIMIT it is one row gather, above it one 1-D gather
+    per column — same values either way."""
+    n, k = 64, 3
+    cols = [jnp.arange(n, dtype=jnp.int32) * (j + 1) for j in range(k)]
+    idx = jnp.asarray([5, 0, 63, 7], jnp.int32)
+    assert K.pack_bytes(n, k, jnp.int32) == n * k * 4 == 768
+    monkeypatch.setattr(K, "PACK_PAD_LIMIT", limit)
+    K.reset_trace()
+    out = K.multi_gather(cols, idx)
+    assert K.TRACE["gathers"] == (1 if packed else k)
+    for j in range(k):
+        np.testing.assert_array_equal(np.asarray(out[j]),
+                                      np.asarray(idx) * (j + 1))

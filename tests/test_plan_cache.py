@@ -1,4 +1,4 @@
-"""Logical-plan cache (prepared-statement analog, VERDICT r5 #6): repeated
+"""Logical-plan cache (prepared-statement analog): repeated
 SELECTs skip resolve+optimize; any DDL/DML/command invalidates (plans embed
 dictionary LIKE bitmaps, stats-driven join orders, SMA folds)."""
 

@@ -146,7 +146,7 @@ def test_network_server_concurrent_clients():
 
 
 def test_embedded_api_routes_through_policy_enforcer():
-    """VERDICT r1 #9: the embedded Database.execute path must go through the
+    """The embedded Database.execute path must go through the
     PolicyEnforcer (reference: every query passes the Foreman/PolicyEnforcer,
     query_execution/PolicyEnforcerSingleNode.cpp:42-56). Two sessions issue
     queries concurrently; all succeed, are serialized by the single dispatch
@@ -194,7 +194,7 @@ def test_with_priority_clause_feeds_enforcer():
 
 def test_segment_granular_interleave():
     """A short query from another session completes WHILE a long streamed
-    query is mid-flight (VERDICT r5 #10): the streamed executor yields to
+    query is mid-flight: the streamed executor yields to
     the PolicyEnforcer between segments."""
     import numpy as np
     import threading

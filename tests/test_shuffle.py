@@ -1,6 +1,6 @@
 """Key-partitioned (radix all_to_all) shuffle-join tests on the 8-device CPU mesh.
 
-Covers VERDICT round-1 missing item #1: a large-large sharded join must plan a
+Covers that a large-large sharded join must plan a
 shuffle (no build-side replication), match single-device rows, and survive
 heavy-hitter key skew (salting / bucket escalation). Reference analog:
 query_optimizer/rules/Partition.hpp:45-87 + PartitionedHashTablePool.hpp:49.

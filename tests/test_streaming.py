@@ -211,7 +211,7 @@ def test_adaptive_probe_ordering():
 def test_out_of_core_order_by(db_factory=None):
     """ORDER BY over a table larger than the HBM budget rides the streamed
     external-sort path (per-segment device runs + host merge) and is
-    row-exact (VERDICT r5 #9; SortMergeRunOperator.hpp:72-129 analog)."""
+    row-exact (SortMergeRunOperator.hpp:72-129 analog)."""
     import numpy as np
     from quickstep_tpu import Database
     db = Database()

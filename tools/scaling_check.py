@@ -1,4 +1,4 @@
-"""SF1 -> SF10 device-time scaling table (VERDICT r5 #2).
+"""SF1 -> SF10 device-time scaling table.
 
 Reads two BENCH_DETAIL-style json files (SF1 and SF10) and emits a
 per-query scaling table: dev_ms ratio vs the 10x row ratio. The reference
@@ -16,7 +16,7 @@ import sys
 def main():
     sf1 = json.load(open(sys.argv[1]))
     sf10 = json.load(open(sys.argv[2]))
-    out_path = sys.argv[3] if len(sys.argv) > 3 else "SCALING_r05.json"
+    out_path = sys.argv[3] if len(sys.argv) > 3 else "data/scaling.json"
     rows = []
     worst = None
     for q in sorted(sf1["queries"], key=int):

@@ -1,6 +1,6 @@
 """Run TPC-H queries against a fullgen store and verify row-exact vs its
 streaming oracle (tools/sf100_fullgen.py). Used both to validate the
-generator at small scale and as the SF100 measurement runner (VERDICT r5 #5).
+generator at small scale and as the SF100 measurement runner.
 
     python tools/sf100_full_verify.py <storedir> [budget_gb] [qlist] [out.json]
 

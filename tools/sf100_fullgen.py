@@ -1,4 +1,4 @@
-"""Full 8-table SF100 TPC-H store + streaming exact oracle (VERDICT r5 #5).
+"""Full 8-table SF100 TPC-H store + streaming exact oracle.
 
 Extends tools/sf100_gen.py (lineitem-only) to the complete schema so
 join-bearing queries run at SF100. Same distributions/formulas as
@@ -19,7 +19,7 @@ While generating, an EXACT integer oracle is accumulated with numpy int64 +
 big-int splitting for Q1,3,4,5,6,7,10,12,14,18,19 — every one of these is
 computable streamingly because a chunk holds whole orders (lineitem rows
 only join orders in their own chunk) and all dimension tables fit in RAM.
-Written to <outdir>/oracle.json (+ /tmp/sf100_full_oracle.json).
+Written to <outdir>/oracle.json.
 
     python tools/sf100_fullgen.py [scale=100] [chunk_orders=10000000] [outdir]
 """
@@ -702,8 +702,6 @@ def main():
         oracle["q18"] = []
     oracle["q19"] = [[oc["q19_rev"] / 10000]]
     with open(os.path.join(outdir, "oracle.json"), "w") as f:
-        json.dump(oracle, f)
-    with open("/tmp/sf100_full_oracle.json", "w") as f:
         json.dump(oracle, f)
 
     # ---------------- stats + catalog.json ----------------

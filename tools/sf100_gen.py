@@ -10,7 +10,7 @@ SF100 Q1/Q6 datapoint, not full TPC-H).
 
 While generating, an EXACT integer oracle for Q1 and Q6 is accumulated with
 Python big-ints (split-sum so no chunk overflows int64) and written to
-/tmp/sf100_oracle.json. The engine's scale-6 decimal sums legitimately widen
+data/sf100_oracle.json. The engine's scale-6 decimal sums legitimately widen
 to f64 (the stats-proven overflow guard; reference parity is double
 arithmetic), so the verifier compares those with relative tolerance.
 
@@ -150,7 +150,7 @@ def main():
             "avg_qty": sq / 100 / n, "avg_price": sp / 100 / n,
             "avg_disc": sdisc / 100 / n, "count_order": n})
     oracle["q6"] = q6_rev / 10000
-    with open("/tmp/sf100_oracle.json", "w") as f:
+    with open(os.path.join(REPO_ROOT, "data", "sf100_oracle.json"), "w") as f:
         json.dump(oracle, f)
 
     # build the store through the normal catalog path

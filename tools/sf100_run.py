@@ -1,11 +1,11 @@
-"""Run streamed TPC-H Q1/Q6 at SF100 on the chip and verify against the
+"""Run streamed TPC-H Q1/Q6 at SF100 on the device and verify against the
 exact big-int oracle produced by tools/sf100_gen.py.
 
-BASELINE's last staged config (SF100): the lineitem store is ~17GB of
-columns against 16GB HBM, so an explicit budget forces the segment-streaming
-path. Emits SF100_r04.json with timing + row-exact status.
+The budget (default: the device's memory_stats()["bytes_limit"]) is set as
+hbm_budget_bytes, so a store larger than it runs on the segment-streaming
+path. Writes data/sf100_run.json with timing + row-exact status.
 
-    python tools/sf100_run.py [budget_gb=10]
+    python tools/sf100_run.py [budget_gb|device] [queries=6,1] [runs=2]
 """
 
 import json
@@ -25,16 +25,22 @@ def close(a, b):
 
 
 def main():
-    budget_gb = float(sys.argv[1]) if len(sys.argv) > 1 else 10.0
+    budget = sys.argv[1] if len(sys.argv) > 1 else "device"
     qspec = sys.argv[2] if len(sys.argv) > 2 else "6,1"
     runs = int(sys.argv[3]) if len(sys.argv) > 3 else 2
     from quickstep_tpu import Database
     from quickstep_tpu.bench.tpch import TPCH_QUERIES
-    oracle = json.load(open("/tmp/sf100_oracle.json"))
+    with open(os.path.join(REPO_ROOT, "data", "sf100_oracle.json")) as f:
+        oracle = json.load(f)
 
     db = Database(storage_path=os.path.join(REPO_ROOT, "data/tpch_sf100_li"))
-    db.config.hbm_budget_bytes = int(budget_gb * (1 << 30))
-    out_path = os.path.join(REPO_ROOT, "SF100_r04.json")
+    if budget == "device":
+        import jax
+        budget_bytes = jax.devices()[0].memory_stats()["bytes_limit"]
+    else:
+        budget_bytes = int(float(budget) * (1 << 30))
+    db.config.hbm_budget_bytes = int(budget_bytes)
+    out_path = os.path.join(REPO_ROOT, "data", "sf100_run.json")
     if os.path.exists(out_path):   # resume: keep already-measured queries
         out = json.load(open(out_path))
     else:
@@ -86,7 +92,7 @@ def main():
         print(f"Q{qname}: cold {wall:.1f}s warm {warm}s "
               f"ok={rec['ok']}", flush=True)
 
-    with open(os.path.join(REPO_ROOT, "SF100_r04.json"), "w") as f:
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
 
